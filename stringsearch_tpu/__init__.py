@@ -1,12 +1,13 @@
-"""stringsearch_tpu — a TPU-native suffix-array and substring-search framework.
+"""stringsearch_tpu — a suffix-array and substring-search framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
-fasterthanlime/stringsearch (suffixsearch): exact suffix-array construction
-for byte text, SA-based longest-common-substring queries, partitioned
-(sharded) construction over TPU meshes, BWT transforms, verification
-oracles, and a crosscheck/bench/run harness with a trusted C++ host oracle.
+A ground-up JAX/XLA re-design of the capabilities of
+fasterthanlime/stringsearch (suffixsearch) for a GPU: exact suffix-array
+construction for byte text, SA-based longest-common-substring queries,
+partitioned (sharded) construction over device meshes, BWT transforms,
+verification oracles, and a crosscheck/bench/run harness with a trusted
+C++ host oracle.
 
-Layer map (mirrors reference layers, re-expressed TPU-first):
+Layer map (mirrors reference layers, re-expressed as data-parallel code):
 
   harness/   CLI: crosscheck | bench | run         (ref: crates/divsuftest)
   parallel/  PartitionedSuffixArray over a Mesh    (ref: crates/sacapart)

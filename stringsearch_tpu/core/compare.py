@@ -1,7 +1,7 @@
 """Vectorized byte-string comparison primitives.
 
 Capability parity with the reference's scalar compare loops, re-expressed as
-fixed-width vector ops for the TPU VPU:
+fixed-width vector ops:
 
 - `common_prefix_len` (ref: crates/sacabase/src/lib.rs:26-35, whose source
   carries a TODO "exploit SSE 4.2" — here the whole compare is one vector op).
@@ -9,7 +9,7 @@ fixed-width vector ops for the TPU VPU:
   (ref: crates/sacabase/src/lib.rs:39-99) and `sa_search`
   (ref: c-sources/utils.c:244-325).
 
-Design notes (TPU-first):
+Design notes:
 - All compares are over *fixed-width* windows (the padded needle length M),
   gathered from the text in one vectorized gather — no data-dependent scalar
   loops under jit.

@@ -82,7 +82,7 @@ class StringIndex(Protocol):
 class SuffixArray:
     """An owning (text, sa) pair with query/verify methods.
 
-    Ref: crates/sacabase/src/lib.rs:152-197. The TPU design keeps both
+    Ref: crates/sacabase/src/lib.rs:152-197. This design keeps both
     arrays on device; `text_bytes()` materialises a host copy lazily for
     `LongestCommonSubstring.as_bytes()`.
     """

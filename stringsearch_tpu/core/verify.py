@@ -6,7 +6,7 @@ Capability parity with the reference's two verifiers:
 - the stronger C `sufcheck` — 3-stage O(n) induced check
   (ref: c-sources/utils.c:160-241).
 
-TPU-first design: instead of comparing adjacent suffixes byte-by-byte
+Data-parallel design: instead of comparing adjacent suffixes byte-by-byte
 (data-dependent loop lengths), we use the classic O(n) ISA-recurrence
 characterisation, which is three gathers and a reduction:
 

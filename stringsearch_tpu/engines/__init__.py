@@ -6,7 +6,7 @@ engines (ref: crates/{divsufsort,cdivsufsort,dc3} all exposing
 crates/sacapart/src/lib.rs:39-41).
 
 Engines here:
-- "doubling": prefix-doubling (rank-doubling) SACA — the TPU-native
+- "doubling": prefix-doubling (rank-doubling) SACA — the data-parallel
   re-formulation of trsort's doubling loop generalized to the whole text
   (ref: crates/divsufsort/src/trsort.rs:1347-1411). Fully jittable.
 - "dc3": difference-cover mod-3 SACA (ref: crates/dc3/src/lib.rs), the

@@ -1,6 +1,6 @@
 """divsufsort-structured SACA: B*-reduction + data-parallel induction.
 
-This is the TPU re-expression of the reference's speed-critical
+This is the data-parallel re-expression of the reference's speed-critical
 structure (SURVEY §7 step 5): instead of hard-sorting all n suffixes
 (engines/doubling.py), only the ~n/3 B* suffixes are sorted via a
 reduced-string problem, and the order of every other suffix is *derived*
@@ -88,7 +88,6 @@ from stringsearch_tpu.engines.doubling import (
     _refine,
     _shift_ranks,
 )
-from stringsearch_tpu.ops.bitonic import device_sort
 
 _I32 = jnp.int32
 
@@ -156,7 +155,7 @@ def _extract_bstar(bstar: jnp.ndarray, idx=_I32):
     cap = n // 2 + 1
     j = jnp.arange(n, dtype=idx)
     key = jnp.where(bstar, j, _sent(idx))
-    ks = device_sort((key,), num_keys=1)[0]
+    ks = jax.lax.sort((key,), num_keys=1)[0]
     p = jnp.where(ks[:cap] == _sent(idx), n, ks[:cap])
     m = jnp.sum(bstar.astype(idx))
     return p, m
@@ -213,7 +212,7 @@ def _name_and_rank(text, p, m, idx=_I32, w0_words: int = 4,
     # pads sort last: all-ones words + max length key
     words = [jnp.where(valid, w, ~jnp.uint32(0)) for w in words]
     lenk = jnp.where(valid, lenk, big)
-    out = device_sort(tuple(words) + (lenk, k), num_keys=w0_words + 1)
+    out = jax.lax.sort(tuple(words) + (lenk, k), num_keys=w0_words + 1)
     k_s = out[-1]
     eq = jnp.ones((cap - 1,), bool)
     for ws in out[:-1]:
@@ -255,7 +254,7 @@ def _name_and_rank(text, p, m, idx=_I32, w0_words: int = 4,
             p_s = jnp.take(p, k_s)
             wl_s = jnp.take(wlen, k_s)
             words, lenk = _window_words(p4, p_s, wl_s, offset, ext_w, n)
-            out = device_sort((head,) + tuple(words) + (lenk, k_s),
+            out = jax.lax.sort((head,) + tuple(words) + (lenk, k_s),
                               num_keys=1 + ext_w + 1)
             head_old, k_s = out[0], out[-1]
             eq = head_old[1:] == head_old[:-1]
@@ -284,7 +283,7 @@ def _name_and_rank(text, p, m, idx=_I32, w0_words: int = 4,
         st = _ext_stage(ext_w, rounds, st)
     _live, _off, head, k_s = st
     # names back to B*-index order (k_s is a permutation of 0..cap)
-    _, name = device_sort((k_s, head), num_keys=1)
+    _, name = jax.lax.sort((k_s, head), num_keys=1)
     return jnp.where(k < m, name, k - jnp.asarray(cap, idx))
 
 
@@ -338,7 +337,7 @@ def _induce(elem_sel, w1, w2, nxt_arr, hops: int, idx=_I32):
         cur = g[:, 2]
     # unselected elements sort last
     keys[0] = jnp.where(elem_sel, keys[0], big)
-    out = device_sort(tuple(keys) + (cur, j), num_keys=len(keys))
+    out = jax.lax.sort(tuple(keys) + (cur, j), num_keys=len(keys))
     jump_s, pos_s = out[-2], out[-1]
     nsel = jnp.sum(elem_sel.astype(idx))
     eq = jnp.ones((n - 1,), bool)
@@ -350,7 +349,7 @@ def _induce(elem_sel, w1, w2, nxt_arr, hops: int, idx=_I32):
     count = jnp.sum(tied.astype(idx))
 
     def scat(pos_s, val_s):
-        _, r = device_sort((pos_s, val_s), num_keys=1)
+        _, r = jax.lax.sort((pos_s, val_s), num_keys=1)
         return r
 
     sel_col = jnp.concatenate(
@@ -379,7 +378,7 @@ def _induce(elem_sel, w1, w2, nxt_arr, hops: int, idx=_I32):
            the sort does not change.
         """
         _c, rank_s, pos_s, jump_s = st
-        _, rank_pos, jump_pos = device_sort(
+        _, rank_pos, jump_pos = jax.lax.sort(
             (pos_s, rank_s, jump_s), num_keys=1
         )
         tbl = jnp.concatenate(
@@ -396,7 +395,7 @@ def _induce(elem_sel, w1, w2, nxt_arr, hops: int, idx=_I32):
         k2 = jnp.where(jsel, g[:, 3], g[:, 1])
         jump2 = jnp.where(jsel, g[:, 4], jump_s)  # doubled; frozen at
         # terminals (unselected / off-end targets keep their jump)
-        out = device_sort((rank_s, k1, k2, jump2, pos_s), num_keys=3)
+        out = jax.lax.sort((rank_s, k1, k2, jump2, pos_s), num_keys=3)
         jump_s, pos_s = out[-2], out[-1]
         eqr = jnp.ones((max(n - 1, 0),), bool)
         for ks in out[:3]:
@@ -510,7 +509,7 @@ def _redsolve(red, idx, depth, levels, fan):
     keys = (seq,) + tuple(
         _shift_ranks(seq, jnp.asarray(t, idx)) for t in range(1, depth)
     )
-    out = device_sort(keys + (k,), num_keys=depth)
+    out = jax.lax.sort(keys + (k,), num_keys=depth)
     sa0, rank_s0, count0 = _ranks_sorted_only(out, idx)
     h0 = jnp.minimum(jnp.asarray(depth, idx), jnp.asarray(cap, idx))
     sa_red, isa_red = _refine(sa0, rank_s0, count0, h0, idx,

@@ -8,7 +8,7 @@ giving the framework a second independently-derived engine for
 crosschecking against the doubling engine and the host oracle — the role
 divsufsort-vs-cdivsufsort differential testing plays in the reference.
 
-TPU-first re-expression of the classic phases
+Data-parallel re-expression of the classic phases
 (ref shapes: crates/dc3/src/lib.rs:15-39 radix_pass, :74-76 triple passes,
 :78-100 naming, :116-127 mod-0 sort, :129-192 merge):
 - the 3× LSB radix passes over triples become one multi-key `lax.sort`;
@@ -60,8 +60,8 @@ def _sample_sort(tpad, n: int, n0: int, n02: int):
 
     def tri(c):
         """tpad[s12 + c] as two STRIDED SLICES instead of a gather —
-        s12 is two arithmetic mod-3 sequences, and strided copies beat
-        index-width gathers on TPU (see README op table). Limits are the
+        s12 is two arithmetic mod-3 sequences, so strided copies replace
+        index-width gathers. Limits are the
         minimal covering values so they stay within tpad for every
         n % 3 (last element accessed is start + 3*(count-1) <= n + 2)."""
         a = jax.lax.slice(tpad, (1 + c,), (1 + c + 3 * (n0 - 1) + 1,), (3,))
@@ -126,7 +126,7 @@ def _finish(tpad, sa12_all, n: int, n0: int, drop_pad: bool, steps0: int,
         pk1 = ((t0c - 256) << 23) | r1          # case mod-1: (T, r[p+1])
         pk2 = ((t1 - 256) << 23) | r2           # case mod-2: (T+1, r[p+2])
         # both keys ride as columns of one [npad, 2] array: a probe step
-        # costs ONE row gather (TPU gather cost is index-count-dominated)
+        # issues ONE row gather instead of two element gathers
         pk = jnp.stack([pk1, pk2], axis=1)
 
         def comp_at(pos):
@@ -233,15 +233,14 @@ _BUCKETS = _build_buckets()
 
 #: below this padded size, recursion LEVELS >= 1 solve the reduced string
 #: with the generalized int-alphabet doubling core in ONE fused dispatch
-#: instead of ~log1.5 further host-driven dc3 levels. Measured on v5e at
-#: 2^22 input: the naive full recursion took 31.5 s warm (r3); a 2^18
-#: threshold only cut ~3% because the cost concentrates in the BIG
-#: levels' binary-search merges (steps x n-width gathers), not the
-#: dispatch-bound deep tail — so the threshold is set to hand off the
-#: whole reduced problem right below the top level (measured numbers in
-#: BENCH_DETAIL.json dc3_engine_r4). Level 0 never takes the shortcut:
-#: every dc3 run exercises the real sample/naming/merge machinery on the
-#: actual input, which is the differential-testing point of this engine.
+#: instead of ~log1.5 further host-driven dc3 levels. The cost
+#: concentrates in the BIG levels' binary-search merges (steps x n-width
+#: gathers), not the dispatch-bound deep tail, so the threshold hands off
+#: the whole reduced problem right below the top level. Chosen on the
+#: original accelerator, not yet measured on the H100. Level 0 never
+#: takes the shortcut: every dc3 run exercises the real
+#: sample/naming/merge machinery on the actual input, which is the
+#: differential-testing point of this engine.
 _SOLVE_THRESHOLD = 1 << 22
 
 

@@ -1,4 +1,4 @@
-"""Prefix-doubling SACA with tied-group compaction — the flagship TPU engine.
+"""Prefix-doubling SACA with tied-group compaction — the flagship engine.
 
 Capability parity: exact suffix-array construction for u8 text, the role
 played by divsufsort in the reference (ref: crates/divsufsort/src/lib.rs:20-29
@@ -13,9 +13,9 @@ program with no host round-trips:
      uint32 keys, one multi-key sort; default depth 24) — the analog of
      divsufsort's 2-char bucket radix placement
      (ref: crates/divsufsort/src/divsufsort.rs:127-161), taken much deeper
-     because on TPU one extra sort key costs far less than a full extra
-     doubling round (microbench-measured on v5e: a 6-key sort is ~1.6x a
-     1-key sort, while every avoided round saves 2 full-width sorts).
+     on the bet that one extra sort key costs less than a full extra
+     doubling round, since every avoided round saves 2 full-width sorts
+     (`harness/microbench.py ops` measures the key-count curve).
      Measured tied fractions on enwik-class text at n=2^24: 58.8% at
      depth 12, 23.7% at 16, 0.72% at 24, 0 at 48 — so at depth 24 the
      build is typically ONE full-width sort plus small compacted
@@ -27,7 +27,7 @@ program with no host round-trips:
      ranks from a neighbor-diff + cumulative max — inside a
      lax.while_loop, only while more than n/levels[0] positions remain
      tied (adversarial inputs: long runs, tiny alphabets);
-  3. cascaded compaction (Larsson–Sadakane re-expressed for TPU): tied
+  3. cascaded compaction (Larsson–Sadakane, data-parallel): tied
      group members move to a static n/4-capacity array, then through
      progressively smaller levels (n/32, n/256 by default) as groups
      resolve; each level's rounds run only while the tied count exceeds
@@ -71,7 +71,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from stringsearch_tpu.core.types import SuffixArray, as_text_array
-from stringsearch_tpu.ops.bitonic import device_sort
 
 _I32 = jnp.int32
 
@@ -103,13 +102,16 @@ def _pack4_keys(text: jnp.ndarray, depth: int) -> tuple:
 
 
 def _scatter_to_text_order(sa, rank_s):
-    """rank[sa] = rank_s as a 1-key sort — cheaper than an XLA scatter.
+    """rank[sa] = rank_s as a 1-key sort instead of an XLA scatter.
 
     `sa` is a permutation of 0..n-1, so sorting (sa, rank_s) by sa places
-    rank_s[j] at text position sa[j]; measured on TPU this beats the
-    random-access scatter (`.at[sa].set`) by ~2x at n=2^24.
+    rank_s[j] at text position sa[j]. Sort versus random-access scatter
+    (`.at[sa].set`) was chosen on the original accelerator, not yet
+    measured on the H100 (`harness/microbench.py ops`: scatter_set vs
+    scatter_via_sort).
     """
-    _, rank = device_sort((sa, rank_s), num_keys=1)
+    with jax.named_scope("rank_invert"):
+        _, rank = jax.lax.sort((sa, rank_s), num_keys=1)
     return rank
 
 
@@ -121,9 +123,8 @@ def _shift_ranks(rank, h):
     the window split immediately, shorter first) — required because the
     zero-padded raw-byte initial keys conflate "suffix ended" with "real
     0x00 byte" (see module docstring). h is traced; the concat +
-    dynamic-slice form keeps the shift a contiguous copy (the
-    `jnp.take(rank, iota+h)` form costs a full random-gather pass on TPU,
-    ~2x the price of the sort itself at n=2^24).
+    dynamic-slice form keeps the shift a contiguous copy instead of the
+    index-driven gather of the `jnp.take(rank, iota+h)` form.
     """
     n = rank.shape[0]
     j = jnp.arange(n, dtype=rank.dtype)
@@ -157,9 +158,8 @@ def _ranks_sorted_only(out, idx):
     shifted-key fetch), so the final round of a build that resolves never
     pays the inverse-permutation sort at all — on 256 MB enwik-like text
     that is the difference between two and three full-width sort passes
-    after the initial (measured: the invert is ~1.7 s at 2^28, and
-    tied@48B is 0 so the last round's invert had no consumer besides the
-    optional ISA return).
+    after the initial (tied@48B is 0, so the last round's invert had no
+    consumer besides the optional ISA return).
     """
     sa_s = out[-1]
     n = sa_s.shape[0]
@@ -189,7 +189,8 @@ def _initial_sorted(text, idx=_I32, depth: int = 24):
     n = text.shape[0]
     keys = _pack4_keys(text, depth)
     j = jnp.arange(n, dtype=idx)
-    out = device_sort(keys + (j,), num_keys=len(keys))
+    with jax.named_scope("initial_sort"):
+        out = jax.lax.sort(keys + (j,), num_keys=len(keys))
     return _ranks_sorted_only(out, idx)
 
 
@@ -207,8 +208,8 @@ def _full_round(rank, h, idx=_I32, fan: int = 2):
     (rank[i], rank[i+h], ..., rank[i+(fan-1)h]), each a depth-h class, so
     one round multiplies the resolved depth by `fan` instead of 2 — the
     caller advances h *= fan. Each extra key is one more n-length sort
-    operand, which on TPU costs far less than a whole extra full-width
-    round (sort + rank scatter); see harness/microbench.py. The
+    operand, traded against a whole extra full-width round (sort + rank
+    scatter); see harness/microbench.py. The
     past-the-end marker protocol (`_shift_ranks`) is per-key: a suffix
     ending within segment k gets the distinct negative marker -(i+1) at
     key k+1, so ended suffixes still split shortest-first at the first
@@ -234,7 +235,8 @@ def _full_round_sorted(rank, h, idx=_I32, fan: int = 2):
         )
         for k in range(1, fan)
     )
-    out = device_sort(keys + (j,), num_keys=fan)
+    with jax.named_scope("round_sort"):
+        out = jax.lax.sort(keys + (j,), num_keys=fan)
     return _ranks_sorted_only(out, idx)
 
 
@@ -244,18 +246,12 @@ def _extract(rank_s, sa_s, m: int, idx=_I32, method: str = "topk"):
     Returns (g [m], pos [m]): group-head ranks and text positions, sorted
     by g (groups contiguous). Pad slots carry g = sentinel, pos = n.
 
-    Two implementations with identical outputs on the default stable
-    lax.sort path (sorted ranks are a permutation-stable key; lax.top_k
-    breaks value ties by ascending index, matching the stable sort).
-    Under the opt-in unstable Pallas device_sort
-    (STRINGSEARCH_TPU_PALLAS=1, see ops/bitonic.py) the "sort" variant
-    may permute tied-group members, so the variants agree only up to
-    within-group order — immaterial downstream, since group membership,
-    heads, and counts are unchanged:
+    Two implementations with identical outputs: `lax.sort` is stable by
+    default and `lax.top_k` breaks value ties by ascending index, so both
+    keep tied-group members in sorted-slot order:
       - "topk": lax.top_k of the negated masked key — cost scales with m
-        (measured numbers in BENCH_DETAIL.json extract_variants);
-      - "sort": full-width 1-key sort — the fallback if top_k regresses
-        on some backend.
+        (`harness/microbench.py extract` measures both);
+      - "sort": full-width 1-key sort.
     """
     n = rank_s.shape[0]
     j = jnp.arange(n, dtype=idx)
@@ -263,12 +259,14 @@ def _extract(rank_s, sa_s, m: int, idx=_I32, method: str = "topk"):
     tied = (rank_s != j) | (nxt_head == rank_s)
     key = jnp.where(tied, rank_s, _sent(idx))
     if method == "topk":
-        negv, idxs = jax.lax.top_k(-key, m)
+        with jax.named_scope("extract_topk"):
+            negv, idxs = jax.lax.top_k(-key, m)
         g = -negv
         pos = jnp.where(g == _sent(idx), jnp.asarray(n, idx),
                         jnp.take(sa_s, idxs))
         return g, pos
-    ks, pos = device_sort((key, sa_s), num_keys=1)
+    with jax.named_scope("extract_sort"):
+        ks, pos = jax.lax.sort((key, sa_s), num_keys=1)
     g = ks[:m]
     pos = jnp.where(g == _sent(idx), n, pos[:m])
     return g, pos
@@ -303,7 +301,8 @@ def _compact_round(g, pos, rank, sa, h, idx=_I32, fan: int = 2):
         # suffixes ending within the window split immediately (shorter
         # first) — same protocol as _shift_ranks
         shift_keys.append(jnp.where(past, -(pos + 1), jnp.take(rank, ph)))
-    out = device_sort((g, *shift_keys, pos), num_keys=fan + 1)
+    with jax.named_scope("compact_sort"):
+        out = jax.lax.sort((g, *shift_keys, pos), num_keys=fan + 1)
     g_s, pos_s = out[0], out[-1]
     group_f = jnp.concatenate([jnp.ones((1,), bool), g_s[1:] != g_s[:-1]])
     kdiff = jnp.zeros((max(m - 1, 0),), bool)
@@ -331,7 +330,8 @@ def _shrink(g, pos, m2: int):
     Caller guarantees the live (non-pad) count is <= m2; resolved entries
     were already blanked to (sent, n) pads by `_compact_round`.
     """
-    g2, p2 = device_sort((g, pos), num_keys=2)
+    with jax.named_scope("shrink_sort"):
+        g2, p2 = jax.lax.sort((g, pos), num_keys=2)
     return g2[:m2], p2[:m2]
 
 
@@ -374,7 +374,7 @@ def build_sa(text: jnp.ndarray, idx=_I32, depth: int = 24,
              extract: str = "auto", adaptive: bool = True):
     """`build_with_isa` without the ISA: skips the final inverse-
     permutation sort when the build resolves inside the full-round loop
-    (the common case on text; ~1.7 s of the 2^28 budget). The headline
+    (the common case on text: one full-width sort fewer). The headline
     `sort()` path uses this."""
     n = text.shape[0]
     if depth % 4 or depth < 4:
@@ -401,14 +401,14 @@ def _refine(sa_s0, rank_s0, count0, h0, idx, levels, fan,
     (sa_s, rank_s); each full round inverts its predecessor's ranks to
     text order just before the shifted-key fetch. A build that resolves
     inside the full-round loop therefore never pays the final
-    inverse-permutation sort unless `want_isa` (measured 2^28: one fewer
-    ~1.7 s full-width pass — the single biggest cost cut of round 4;
-    with want_isa=False the second return value is an alias of `sa`).
+    inverse-permutation sort unless `want_isa` (one full-width pass
+    fewer; with want_isa=False the second return value is an alias of
+    `sa`).
 
     `extract` = "sort" | "topk" | "auto": auto picks top_k only for
-    capacities <= n/32, where it measures cheaper than the full-width
-    sort (v5e @2^28: topk 1.06 s vs sort 1.33 s at n/64, but 2.8 s vs
-    1.33 s at n/4 — see BENCH_DETAIL.json extract_variants).
+    capacities <= n/32 and the full-width sort above. The n/32 threshold
+    was chosen on the original accelerator, not yet measured on the H100
+    (`harness/microbench.py extract`).
     """
     n = sa_s0.shape[0]
     n_i = jnp.asarray(n, idx)
@@ -534,7 +534,8 @@ def build_ints_with_isa(seq: jnp.ndarray, idx=_I32, depth: int = 4,
     keys = (seq,) + tuple(
         _shift_ranks(seq, jnp.asarray(t, idx)) for t in range(1, depth)
     )
-    out = device_sort(keys + (j,), num_keys=depth)
+    with jax.named_scope("initial_sort"):
+        out = jax.lax.sort(keys + (j,), num_keys=depth)
     sa_s0, rank_s0, count0 = _ranks_sorted_only(out, idx)
     h0 = jnp.minimum(jnp.asarray(depth, idx), jnp.asarray(n, idx))
     return _refine(sa_s0, rank_s0, count0, h0, idx, levels, fan,
@@ -604,15 +605,13 @@ def sort_in_place(text, sa_out: np.ndarray) -> None:
 
 
 def _auto_depth(n: int) -> int:
-    """Initial-key depth: 12 bytes at every size (measured r4, v5e).
+    """Initial-key depth: 12 bytes at every size.
 
     With lazy inverts, the fan-4 round resolves everything the initial
-    leaves tied (tied@48B = 0 on enwik-class text at every measured
-    size), so the depth-12 initial + one fan-4 round beats deeper
-    initials across the board: 68.0 vs 66.2 MB/s against depth-24 at
-    2^24, 58.0 vs 53.7 against depth-16 at 2^26, 47.5 vs 43.8 at 2^28
-    (BENCH_DETAIL.json headline sweeps). Deeper initials pay extra sort
-    operands for ties the round resolves anyway."""
+    leaves tied (tied@48B = 0 on enwik-class text), so deeper initials
+    pay extra sort operands for ties the round resolves anyway. Chosen
+    on the original accelerator, not yet measured on the H100
+    (`harness/microbench.py sweep` compares depths)."""
     return 12
 
 

@@ -375,7 +375,7 @@ def main(argv=None) -> int:
         default="engines",
         help="comma list: engines,partitioned,global,transforms",
     )
-    ap.add_argument("--device", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--device", default=None, choices=[None, "cpu", "gpu"])
     ap.add_argument("--out", default="fuzz-crashes")
     ap.add_argument(
         "--replay", default=None, metavar="FILE",
@@ -393,30 +393,15 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_enable_x64", True)
+    from stringsearch_tpu.harness.device import select_device
     from stringsearch_tpu.utils.compile_cache import enable_persistent_cache
 
-    if args.device == "cpu":
-        import jax
+    if args.device is not None and not select_device(args.device):
+        return 2
+    # off on the CPU backend (see utils/compile_cache.py): CPU campaigns
+    # rely on periodic jax.clear_caches() (mmap budget) instead
+    enable_persistent_cache()
 
-        jax.config.update("jax_default_device", jax.devices("cpu")[0])
-        # NO persistent cache on the CPU backend: XLA:CPU AOT results
-        # reloaded from the cache carry compile-machine feature strings
-        # (+prefer-no-gather/-scatter pseudo-features) the host probe
-        # rejects — "could lead to execution errors such as SIGILL",
-        # and campaigns measurably segfaulted (rc=139) on such loads
-        # while cacheless runs were stable. Campaigns instead rely on
-        # periodic jax.clear_caches() (mmap budget) and parallel chunk
-        # processes for throughput. Opt back in explicitly with
-        # STRINGSEARCH_TPU_FUZZ_CACHE=1 to reproduce the hazard.
-        if os.environ.get("STRINGSEARCH_TPU_FUZZ_CACHE"):
-            enable_persistent_cache(
-                for_cpu=True, min_secs=0.0,
-                cache_dir=os.environ.get(
-                    "STRINGSEARCH_TPU_COMPILE_CACHE",
-                    "/tmp/stringsearch_tpu_jax_cache_fuzz"),
-            )
-    else:
-        enable_persistent_cache()
 
     seed = args.seed if args.seed is not None else int(time.time())
     rng = np.random.default_rng(seed)

@@ -1,27 +1,23 @@
 """Scaling-efficiency harness — sharded build throughput vs shard count.
 
-BASELINE.json's north star includes ">= 80% scaling efficiency at 2+
-hosts". The reference has no distributed story to compare against (rayon
-threads only, ref: crates/sacapart/src/lib.rs:45-51); this harness defines
-the measurement for the TPU build, for BOTH distributed build modes:
+The reference has no distributed story to compare against (rayon
+threads only, ref: crates/sacapart/src/lib.rs:45-51); this harness
+times both distributed build modes:
 
   * `--mode partitioned` — independent per-shard SAs (parallel/mesh.py),
     zero communication: the embarrassingly-parallel upper bound;
   * `--mode global` (default) — the exact global SA (parallel/global_sa.py),
-    whose per-round bitonic merge-split over ICI is where the >= 80%
-    efficiency target is actually at risk. This is the number BASELINE
-    means.
+    whose per-round collectives are where scaling is at risk.
 
 Both time a fixed-size input at 1, 2, 4, ... P shards with throughput in
-B/s and efficiency = (bps_k / bps_1) / k.
+B/s and efficiency = (bps_k / bps_1) / k. The global mode also prints
+the exact bytes each device sends (parallel/comm_model.py), and a wire
+time and projected efficiency only when `--link-gbps` gives a rate.
 
 Run on however many devices the backend exposes:
-  python -m stringsearch_tpu.harness.scaling 4m            # real TPU devices
+  python -m stringsearch_tpu.harness.scaling 64m --device gpu   # the GPUs
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python -m stringsearch_tpu.harness.scaling 1m        # virtual 8-dev mesh
-On a multi-host slice, initialize `jax.distributed` first (see
-parallel/multihost.py); the same shard_map code rides ICI within a slice
-and DCN across hosts.
 """
 
 from __future__ import annotations
@@ -29,8 +25,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-import numpy as np
 
 from stringsearch_tpu.utils.sizes import format_throughput, parse_size
 
@@ -42,7 +36,6 @@ def measure(
     mode: str = "global",
 ) -> list[tuple[int, float, float]]:
     import jax
-    import jax.numpy as jnp
 
     from stringsearch_tpu.harness.corpus import enwik_like
     from stringsearch_tpu.parallel.mesh import build_sharded, make_mesh
@@ -50,12 +43,9 @@ def measure(
     devs = jax.devices(backend) if backend else jax.devices()
     text = enwik_like(size)
 
-    def sync(x):
-        np.asarray(jnp.max(x))
-
     def one_partitioned(mesh):
         _chunks, sas, _lens = build_sharded(text, mesh)
-        sync(sas)
+        sas.block_until_ready()
 
     last_build = {}
 
@@ -63,7 +53,7 @@ def measure(
         from stringsearch_tpu.parallel.global_sa import GlobalSuffixArray
 
         g = GlobalSuffixArray(text, mesh)  # _build runs in the constructor
-        sync(g._sa_sharded)
+        g._sa_sharded.block_until_ready()
         # keep only the plain-int comm report, not the device buffers —
         # retaining the index would inflate HBM during later timings
         last_build["report"] = g.comm_report()
@@ -91,25 +81,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="stringsearch-tpu-scaling")
     ap.add_argument("size", nargs="?", default="4m", help="input size (k/m/g)")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--device", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--device", default=None, choices=[None, "cpu", "gpu"])
     ap.add_argument(
-        "--ici-gbps", type=float, default=45.0,
-        help="assumed per-chip ICI bandwidth (GB/s) for the comm-model "
-        "projection (v5e: ~45 GB/s/link; partners within a tray)",
+        "--link-gbps", type=float, default=None,
+        help="per-device send rate (GB/s) for a wire-time projection of "
+        "the measured bytes; without it only the bytes are printed",
     )
     ap.add_argument(
         "--mode",
         default="global",
         choices=["global", "partitioned"],
-        help="global = exact global SA (communication-bound; the BASELINE "
-        "number); partitioned = independent per-shard SAs (upper bound)",
+        help="global = exact global SA (communication-bound); "
+        "partitioned = independent per-shard SAs (upper bound)",
     )
     args = ap.parse_args(argv)
 
-    if args.device == "cpu":
-        import jax
+    if args.device is not None:
+        from stringsearch_tpu.harness.device import select_device
 
-        jax.config.update("jax_default_device", jax.devices("cpu")[0])
+        if not select_device(args.device):
+            return 2
 
     size = parse_size(args.size)
     rows = measure(size, args.reps, backend=args.device, mode=args.mode)
@@ -120,25 +111,26 @@ def main(argv=None) -> int:
         eff = bps / (base * k)
         print(f"{k:>6}  {dt:>8.3f}s  {format_throughput(bps):>14}  {eff:>9.1%}")
     if args.mode == "global":
-        # the ICI communication model (parallel/comm_model.py): exact
-        # bytes each device exchanges for THIS build (actual round
-        # counts), wire time at --ici-gbps, and the projected REAL
-        # multi-chip efficiency bound compute/(compute+comm) with
-        # per-chip compute approximated by t(1 shard)/k. The virtual-CPU
-        # mesh's raw efficiency column above mixes substrate contention
-        # into the number; this model is what transfers to real chips.
+        # exact bytes each device sends for THIS build (actual round
+        # counts, parallel/comm_model.py); with --link-gbps also the wire
+        # time and the efficiency bound compute/(compute+comm), per-chip
+        # compute approximated by t(1 shard)/k
         t1 = rows[0][1]
-        print(f"\nICI comm model (per device, {args.ici_gbps:g} GB/s):")
-        print(f"{'Shards':>6}  {'Rounds':>6}  {'MB sent':>9}  "
-              f"{'Wire time':>9}  {'Proj. eff.':>10}")
+        rate = args.link_gbps
+        print("\ncomm volume (per device)"
+              + (f", projected at {rate:g} GB/s:" if rate else ":"))
+        print(f"{'Shards':>6}  {'Rounds':>6}  {'MB sent':>9}"
+              + (f"  {'Wire time':>9}  {'Proj. eff.':>10}" if rate else ""))
         for k, _dt, _bps, rep in rows:
             if rep is None or k == 1:
                 continue
-            comm = rep.projected_comm_seconds(args.ici_gbps)
-            eff = rep.projected_efficiency(t1 / k, args.ici_gbps)
-            print(f"{k:>6}  {rep.rounds:>6}  "
-                  f"{rep.total_bytes / 1e6:>8.1f}M  {comm:>8.4f}s  "
-                  f"{eff:>9.1%}")
+            line = (f"{k:>6}  {rep.rounds:>6}  "
+                    f"{rep.total_bytes / 1e6:>8.1f}M")
+            if rate:
+                comm = rep.projected_comm_seconds(rate)
+                eff = rep.projected_efficiency(t1 / k, rate)
+                line += f"  {comm:>8.4f}s  {eff:>9.1%}"
+            print(line)
     return 0
 
 

@@ -11,7 +11,7 @@ execution path* (host-stepped rounds around jitted kernels, see
 engines/doubling.py `sort_traced`) so the jitted fast path carries no
 tracing overhead at all. Dump format is line-diffable: `:: label` headers
 and 25 values per line, matching the reference's dump shape so traces from
-the TPU engine and the host oracle diff cleanly against each other.
+the device engines and the host oracle diff cleanly against each other.
 """
 
 from __future__ import annotations

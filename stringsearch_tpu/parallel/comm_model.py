@@ -1,14 +1,13 @@
-"""ICI communication model for the distributed global-SA build.
+"""Communication volume of the distributed global-SA build.
 
 Every collective in the build moves a statically known number of bytes
 (all shapes are static), so the per-device communication volume is exact
-arithmetic, not sampling. This is the evidence layer for the multi-chip
-scaling target (BASELINE: >= 80% efficiency at 2+ hosts): the virtual-CPU
-mesh can validate correctness but its `ppermute` is a host memcpy, so
-projected REAL efficiency must come from bytes-moved x ICI bandwidth
-against measured per-chip compute. (What is being surpassed:
-the reference's only parallelism is rayon threads over independent
-partitions with zero reconciliation, ref: crates/sacapart/src/lib.rs:45-51.)
+arithmetic, not sampling. The virtual-CPU mesh validates correctness
+but its `ppermute` is a host memcpy, so this byte count is what a CPU
+run can say about the collectives; their time comes only from a
+profiler trace on the cards. (What is being surpassed: the reference's
+only parallelism is rayon threads over independent partitions with
+zero reconciliation, ref: crates/sacapart/src/lib.rs:45-51.)
 
 Communication inventory of one `GlobalSuffixArray` build (see
 parallel/global_sa.py, parallel/distsort.py):
@@ -29,8 +28,7 @@ comparator stages; each stage exchanges the device's FULL chunk of
 every operand with its partner (ppermute), so a device sends (and
 receives) S(P) * L * ops * width bytes per sort. The round-5
 rank_interval_sort replaces that with ~2L elements per operand per
-sort on the fast path — the S(P)-fold wire cut that moves the P=8
-projection from 59% toward 80%.
+sort on the fast path — an S(P)-fold cut in bytes sent.
 """
 
 from __future__ import annotations
@@ -69,26 +67,21 @@ class CommReport:
     per_round_bytes: int
     total_bytes: int
 
-    def projected_comm_seconds(self, ici_gbytes_per_s: float) -> float:
-        """Wire time if sends ride ICI at the given per-chip bandwidth.
-
-        Bitonic merge-split partners are `me ^ j` — on a torus they are
-        up to j hops apart, so the single-link number is conservative for
-        large P; at P <= 8 within one v5e tray every partner is <= 2 hops.
-        """
-        return self.total_bytes / (ici_gbytes_per_s * 1e9)
+    def projected_comm_seconds(self, link_gbytes_per_s: float) -> float:
+        """Wire time if every send leaves the device at the given rate
+        (an all-to-all fabric: every partner is one hop away)."""
+        return self.total_bytes / (link_gbytes_per_s * 1e9)
 
     def projected_efficiency(self, compute_seconds_per_chip: float,
-                             ici_gbytes_per_s: float) -> float:
+                             link_gbytes_per_s: float) -> float:
         """compute / (compute + comm), the model's scaling-efficiency bound.
 
         `compute_seconds_per_chip` = the measured single-chip build time
         of one chunk-sized problem (the work that doesn't shrink away);
-        overlap of compute with ICI transfers is NOT assumed (XLA does
-        overlap merge compute with the next exchange in practice, so this
-        is a lower bound on efficiency from the comm side).
+        overlap of compute with transfers is NOT assumed, so this is a
+        lower bound on efficiency from the comm side.
         """
-        comm = self.projected_comm_seconds(ici_gbytes_per_s)
+        comm = self.projected_comm_seconds(link_gbytes_per_s)
         return compute_seconds_per_chip / (compute_seconds_per_chip + comm)
 
 
@@ -111,7 +104,7 @@ def compact_round_bytes_per_device(p: int, chunk_elems: int,
                                    fan: int = 3, width: int = 4,
                                    compact_div: int = 4) -> int:
     """Bytes sent per device by one COMPACTED round (global_sa.py
-    `_compact_round`) — the adversarial-input path whose ICI volume is
+    `_compact_round`) — the adversarial-input path whose volume is
     bounded by the live tied population, not n_pad.
 
     Inventory (M = L // compact_div, cap = 2*ceil(2M/P)):

@@ -1,17 +1,17 @@
 """Distributed multi-key sort over a device mesh — bitonic merge-split.
 
-The TPU-native building block the reference has no analog of: its only
+The device-mesh building block the reference has no analog of: its only
 parallelism is rayon threads over *independent* partitions
 (ref: crates/sacapart/src/lib.rs:45-51), so cross-partition order is never
 reconciled. The global suffix-array engine (parallel/global_sa.py) needs a
 *true global sort* of key tuples that live sharded across chips.
 
 Design: chunk-level bitonic merge-split — the classic distributed sort for
-fixed-size shards on a torus/ring:
+fixed-size shards:
 
 - each device locally sorts its [L] chunk (XLA sort);
 - the bitonic network over P chunk-slots runs comparator stages; each
-  comparator is: exchange chunks with a partner over ICI (`ppermute`),
+  comparator is: exchange chunks with a partner (`ppermute`),
   merge the two sorted chunks (one 2L XLA sort), keep the lower or upper
   half depending on network direction;
 - P power-of-two, all shapes static, O(log^2 P) stages, each stage moving
@@ -299,7 +299,7 @@ def exclusive_shard_offset(local_sum: jnp.ndarray, axis_name: str):
 
     Used to turn per-shard cumsums into global cumsums: a one-hot
     all-gather of the scalar partials followed by a masked sum, so the
-    collective is a single small all-gather over ICI.
+    collective is a single small all-gather.
     """
     p = jax.lax.axis_size(axis_name)
     me = jax.lax.axis_index(axis_name)

@@ -3,7 +3,7 @@
 The primitive the reference never needed (its data always fits one
 node): read `out[i] = values[idx[i]]` where `values` is sharded over the
 mesh's "parts" axis and every shard holds its own batch of global
-indices. TPU-native formulation with fully static shapes:
+indices. Formulation with fully static shapes:
 
   1. each shard sorts its requests by owner shard (one small local
      sort), computes each request's rank within its owner segment, and
@@ -11,7 +11,7 @@ indices. TPU-native formulation with fully static shapes:
      destination equals the local request count m, so NO distribution of
      requests can overflow (the worst case is all m requests owned by
      one shard);
-  2. one `all_to_all` moves request buffers to their owners (ICI);
+  2. one `all_to_all` moves request buffers to their owners;
   3. owners answer with a plain local take;
   4. a reverse `all_to_all` returns answers, and the original request
      order is restored by scattering through the sort's permutation.

@@ -29,8 +29,8 @@ ref: crates/divsufsort/src/trsort.rs:1363-1410), re-expressed shard-wise:
   per round (h static per round; depth multiplies by `fan` — default 3 —
   per round: sort keys (rank[i], rank[i+h], .., rank[i+(fan-1)h]), each
   a depth-h class; an extra key is one more operand through the
-  merge-split exchanges, far cheaper than an extra full round of global
-  sorts over ICI):
+  merge-split exchanges, traded against an extra full round of global
+  sorts):
     1. rank_h[i] = rank[i+h] — two static `ppermute` hops (the source
        global position i+h falls in at most two neighbor shards); past
        the end the marker is -(i+1): negative and strictly decreasing,
@@ -109,11 +109,10 @@ def _global_iota(chunk_len: int, idx):
 def _gmin(x):
     """Cross-shard min of a scalar via all_gather + local reduce.
 
-    TPU lowers 64-bit all-reduces only for SUM (measured on the v5e AOT
-    path: 'Supported lowering only of Sum all reduce' for an s64 pmin),
-    so the i64 index mode cannot use lax.pmax/pmin on ranks. An
-    all_gather of one scalar costs the same collective class and lowers
-    for every dtype.
+    Not every backend lowers 64-bit all-reduces other than SUM (the
+    original accelerator refused an s64 pmin), so the i64 index mode
+    does not use lax.pmax/pmin on ranks. An all_gather of one scalar
+    costs the same collective class and lowers for every dtype.
     """
     return jnp.min(jax.lax.all_gather(x, _AXIS))
 
@@ -255,8 +254,8 @@ def _doubling_step(chunk_len: int, total_shards: int, idx, h: int, rank,
     `fan` as in engines/doubling.py: sort keys (rank[i], rank[i+h], ...,
     rank[i+(fan-1)h]) — each a depth-h class — multiply the resolved
     depth by `fan` per round instead of 2. Each extra key costs one more
-    operand through the bitonic merge-split exchanges, far cheaper than
-    a whole extra round of global sorts over ICI.
+    operand through the bitonic merge-split exchanges, traded against a
+    whole extra round of global sorts.
     """
     n_pad = chunk_len * total_shards
     shifts = [
@@ -317,11 +316,11 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
     The distributed analog of the single-chip compaction cascade
     (engines/doubling.py `_compact_round`; the role of trsort's
     skip-run compression, ref: crates/divsufsort/src/trsort.rs:1363-1410):
-    instead of sorting all n_pad lanes over ICI every round, each shard
+    instead of sorting all n_pad lanes across the mesh every round, each shard
     extracts the tied slots RESIDENT in its slice of the sorted order
     (<= m_cap of them), reunites boundary-straddling groups on their
     head's shard with one neighbor ppermute, and refines them with
-    LOCAL sorts — the only full-width ICI traffic left is the
+    LOCAL sorts — the only full-width collective traffic left is the
     shifted-key gather and the text-order rank write-back, both
     balanced all_to_alls at 2*ceil(2M/P) per-pair capacity. Per-round
     wire is thereby bounded by the LIVE TIED POPULATION, not n_pad.
@@ -673,7 +672,7 @@ def _jit_search(mesh: Mesh, text_mode: str, chunk: int, n: int, n_pad: int,
     counts of its entries below the needle, so the GLOBAL bounds are
     plain psums — count = psum(up - lo), leftmost slot = psum(lo). No
     device materializes the whole SA; the reduction is two scalar-batch
-    psums over ICI.
+    psums.
 
     Pad-suffix handling: probe windows mask every byte at global
     position >= n (the real text end) to PAST_TEXT_END, so pad bytes can
@@ -792,7 +791,7 @@ class GlobalSuffixArray:
         # exit is unsound; the saturated round is the guaranteed
         # finisher). Once the tied population fits the compacted
         # capacity with headroom, rounds switch to the compacted path
-        # whose ICI volume tracks the live population (adversarial
+        # whose collective volume tracks the live population (adversarial
         # inputs: long runs / tiny alphabets); every compacted round
         # self-falls-back to a full-width round on capacity overflow.
         while bool(count):
@@ -876,7 +875,7 @@ class GlobalSuffixArray:
         )
 
     def comm_report(self):
-        """Exact per-device ICI communication volume of THIS build
+        """Exact per-device communication volume of THIS build
         (parallel/comm_model.py; uses the actual rounds_run)."""
         from stringsearch_tpu.parallel.comm_model import report_for
 
@@ -894,7 +893,7 @@ class GlobalSuffixArray:
         """Batched LCS query against the sharded global SA — distributed.
 
         Each shard binary-searches its contiguous slice of the global
-        sorted order; the per-shard candidates reduce over ICI with an
+        sorted order; the per-shard candidates reduce with an
         all-gather + argmax. No device ever materializes the whole SA.
         Same LCS-of-needle-prefix semantics as the single-device path
         (ref: crates/sacabase/src/lib.rs:39-99).

@@ -1,6 +1,6 @@
 """Device-mesh sharded suffix arrays: multi-chip construction + queries.
 
-Capability parity: this is the TPU-native form of the reference's rayon
+Capability parity: this is the device-mesh form of the reference's rayon
 thread-pool partitioned build (ref: crates/sacapart/src/lib.rs:45-51
 `par_chunks`) and its query-side reduction (:86-92) — re-expressed as
 `shard_map` over a `jax.sharding.Mesh`:
@@ -12,7 +12,7 @@ thread-pool partitioned build (ref: crates/sacapart/src/lib.rs:45-51
   across that axis, every device answers for its needles against its
   partition;
 - the reduction (best match over partitions, earliest partition wins
-  ties) rides ICI as an all-gather of per-partition candidates followed
+  ties) is an all-gather of per-partition candidates followed
   by a replicated argmax — the collective form of sacapart's
   first-wins max loop.
 
@@ -118,7 +118,7 @@ def _sharded_query(chunks, sas, full_text, real_lens, needles, steps: int, mesh:
         tlen = jnp.where(valid, tlen, -1)  # [p_loc, b_loc]
 
         # reduce over partitions: all-gather candidates over the "parts"
-        # axis (ICI), then a replicated argmax with earliest-partition ties
+        # axis, then a replicated argmax with earliest-partition ties
         all_len = jax.lax.all_gather(tlen, "parts", axis=0, tiled=True)  # [P, b_loc]
         all_start = jax.lax.all_gather(gstarts, "parts", axis=0, tiled=True)
         best_p = jnp.argmax(all_len, axis=0)

@@ -6,7 +6,7 @@ split the text into P partitions, build each partition's SA in parallel,
 and answer queries by searching every partition and keeping the best match,
 with cross-boundary repair.
 
-TPU-first re-design:
+Data-parallel re-design:
 - rayon `par_chunks` (ref: sacapart/src/lib.rs:45-51) becomes a *batched*
   build: all partitions' doubling loops run as one vmapped program, so a
   single chip sorts all partitions at once, and a mesh shards the partition

@@ -1,4 +1,4 @@
-"""Burrows–Wheeler transform and inverse, TPU-native.
+"""Burrows–Wheeler transform and inverse, on the device.
 
 Capability parity with the reference's C-side extras (ref:
 c-sources/divsufsort.c:372-405 `divbwt` direct BWT entry,
@@ -9,7 +9,7 @@ Convention (identical to the C++ oracle, so outputs cross-check byte-exact):
 with SA the suffix array and pidx the row where SA[pidx] == 0,
   U[0] = T[n-1];  U[1:] = T[SA[i]-1] for rows i in order, skipping row pidx.
 
-TPU-first design:
+Data-parallel design:
 - forward: one gather + one index-shift gather (the "skip one row"
   compaction is a computed-index gather, not a dynamic-shape filter).
 - inverse: the reference's LF walk is a sequential n-step pointer chase
@@ -69,9 +69,7 @@ def _unbwt_kernel(u: jnp.ndarray, pidx: jnp.ndarray, rounds: int):
 
     # Pointer jumping: distance from every row to row 0 along the LF
     # cycle. (nxt, dist) ride as COLUMNS of one [m, 2] array so each
-    # doubling round is ONE row gather instead of two element gathers —
-    # TPU gather cost is index-count-dominated (README op table), so the
-    # fused fetch nearly halves the round cost.
+    # doubling round is ONE row gather instead of two element gathers.
     nxt = jnp.where(r == 0, 0, lf)
     dist = jnp.where(r == 0, 0, 1).astype(_I32)
     state = jnp.stack([nxt, dist], axis=1)  # [m, 2]

@@ -2,8 +2,8 @@
 
 Capability parity with the reference CLI's size handling
 (ref: crates/divsuftest/src/main.rs:192-208 `parse_size` with k/m suffixes,
-and size_format usage at main.rs:52-55). Extended with `g` since TPU HBM
-holds multi-GB texts.
+and size_format usage at main.rs:52-55). Extended with `g` since device
+memory holds multi-GB texts.
 """
 
 from __future__ import annotations

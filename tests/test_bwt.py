@@ -1,4 +1,4 @@
-"""BWT layer tests: TPU forward/inverse, oracle cross-check, round-trips
+"""BWT layer tests: device forward/inverse, oracle cross-check, round-trips
 (ref capabilities: c-sources/divsufsort.c divbwt/construct_BWT,
 utils.c bw_transform/inverse_bw_transform)."""
 
@@ -18,14 +18,14 @@ def test_bwt_matches_oracle(corpus):
         assert pidx_t == pidx_c, f"pidx mismatch on {name!r}"
 
 
-def test_roundtrip_tpu_both_ways(corpus):
+def test_roundtrip_device_both_ways(corpus):
     for name, data in corpus.items():
         u, pidx = divbwt(data)
-        assert unbwt(u, pidx) == data, f"tpu roundtrip failed on {name!r}"
+        assert unbwt(u, pidx) == data, f"device roundtrip failed on {name!r}"
 
 
 def test_cross_roundtrip():
-    """TPU forward + oracle inverse and vice versa — conventions must agree."""
+    """Device forward + oracle inverse and vice versa — conventions must agree."""
     rng = np.random.default_rng(2)
     data = bytes(rng.integers(0, 256, 3000, dtype=np.uint8))
     u_t, pidx_t = divbwt(data)

@@ -41,14 +41,7 @@ def test_extract_variants_parity(corpus, extract, adaptive):
     """Both extract implementations and both cascade-entry modes must be
     byte-identical: extraction order is pinned by (stable sort == top_k's
     ascending-index tie-break), and the adaptive switch only skips
-    no-op extract/shrink passes. The pin holds only on the default
-    stable lax.sort path — under STRINGSEARCH_TPU_PALLAS=1 the unstable
-    device_sort may permute tied-group members (immaterial downstream)."""
-    import os
-
-    if os.environ.get("STRINGSEARCH_TPU_PALLAS"):
-        pytest.skip("extract-variant byte-parity is pinned to the stable "
-                    "lax.sort path; the Pallas device_sort is unstable")
+    no-op extract/shrink passes."""
     from stringsearch_tpu.engines.doubling import build_with_isa
 
     rng = np.random.default_rng(7)

@@ -256,7 +256,7 @@ def test_global_simplesearch(mesh8):
 
 def test_global_distributed_compaction(mesh8):
     """Adversarial inputs (tiny alphabets, repeats) must route through
-    the COMPACTED rounds (per-round ICI bounded by the live tied
+    the COMPACTED rounds (per-round collective volume bounded by the live tied
     population) and still produce THE suffix array; compaction=False
     pins the full-width path for differential comparison."""
     rng = np.random.default_rng(11)

@@ -3,7 +3,7 @@
 Spawns 2 local processes, each exposing 2 virtual CPU devices, wires them
 with `jax.distributed.initialize` over a localhost coordinator, and
 builds the exact global suffix array over the resulting 4-device
-cross-process mesh — the same code path a DCN-spanning TPU pod runs
+cross-process mesh — the same code path a job spanning several hosts runs
 (ref ancestor: the reference has no multi-host story at all; its
 parallelism ends at rayon threads, crates/sacapart/src/lib.rs:45-51).
 """

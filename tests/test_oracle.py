@@ -21,18 +21,18 @@ def test_engine_vs_oracle_crosscheck(corpus):
     """The heart of the reference's test strategy: two independent engines,
     byte-exact equality (the SA of a text is unique)."""
     for name, data in corpus.items():
-        tpu_sa = np.asarray(st.build_suffix_array(data, engine="doubling").sa)
+        dev_sa = np.asarray(st.build_suffix_array(data, engine="doubling").sa)
         c_sa = oracle.build(data)
-        assert np.array_equal(tpu_sa, c_sa), f"engines disagree on {name!r}"
+        assert np.array_equal(dev_sa, c_sa), f"engines disagree on {name!r}"
 
 
 def test_engine_vs_oracle_random_large():
     rng = np.random.default_rng(77)
     for n, alpha in [(20000, 256), (20000, 2), (50000, 4)]:
         data = bytes(rng.integers(0, alpha, n, dtype=np.uint8))
-        tpu_sa = np.asarray(st.build_suffix_array(data).sa)
+        dev_sa = np.asarray(st.build_suffix_array(data).sa)
         c_sa = oracle.build(data)
-        assert np.array_equal(tpu_sa, c_sa), (n, alpha)
+        assert np.array_equal(dev_sa, c_sa), (n, alpha)
 
 
 def test_sufcheck_accepts_and_rejects():
@@ -45,7 +45,7 @@ def test_sufcheck_accepts_and_rejects():
     assert oracle.sufcheck(data, np.zeros_like(sa)) != 0
 
 
-def test_oracle_search_matches_tpu_search():
+def test_oracle_search_matches_device_search():
     rng = np.random.default_rng(123)
     data = bytes(rng.integers(0, 6, 800, dtype=np.uint8))
     idx = st.build_suffix_array(data)
